@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md).
+"""Regression tests for the round-1 advisor findings.
 
 1. restore_params must restore checkpoints that carry opt_state (high).
 2. engine.load_params must fail loudly on an unrestorable existing ckpt.

@@ -103,22 +103,3 @@ def test_deferred_write_beam_token_parity():
     deferred = generate(params, cfg_def, embeds, dp, prefill_mask=mask)
     np.testing.assert_array_equal(np.asarray(base), np.asarray(deferred))
 
-
-def test_deferred_write_beam_kernel_interpret():
-    """Deferred beam decode with the Pallas kernel forced (interpret mode)
-    matches the deferred XLA path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from video_caption_tpu.decode.generate import generate
-
-    cfg_x = g2.GPT2Config(vocab_size=256, n_embd=64, n_layer=2, n_head=2,
-                          dtype=jnp.float32, deferred_cache_write=True)
-    cfg_k = dataclasses.replace(cfg_x, use_pallas_beam_attention=True)
-    params = g2.init_gpt2_params(jax.random.PRNGKey(0), cfg_x)
-    embeds = jax.random.normal(jax.random.PRNGKey(1), (2, 5, 64))
-    dp = DecodeParams(max_new_tokens=6, num_beams=2, min_new_tokens=2,
-                      eos_id=255)
-    base = generate(params, cfg_x, embeds, dp)
-    with pltpu.force_tpu_interpret_mode():
-        kern = generate(params, cfg_k, embeds, dp)
-    np.testing.assert_array_equal(np.asarray(base), np.asarray(kern))

@@ -1,59 +1,10 @@
-"""Fused LM-head + stats kernel (ops/pallas/lm_head.py) vs the XLA fallback
-(interpret mode on CPU), plus the wmax-precomputed exact_topk path."""
+"""The wmax-precomputed exact_topk path (the LM head's window maxima feed
+the first selection stage)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
 from video_caption_tpu.decode.logits_process import exact_topk
-from video_caption_tpu.ops.pallas import lm_head as lmh
-
-
-def _inputs(r=16, h=128, v=1400):
-    rng = np.random.RandomState(0)
-    x = jnp.asarray(rng.randn(r, h).astype(np.float32)).astype(jnp.bfloat16)
-    vp = -(-v // 128) * 128
-    wte_t = jnp.asarray(rng.randn(h, vp).astype(np.float32)).astype(jnp.bfloat16)
-    # zero the pad columns like lm_head_t's jnp.pad does
-    col = jnp.arange(vp)
-    wte_t = jnp.where(col[None, :] < v, wte_t, 0)
-    return x, wte_t, v
-
-
-def _fallback(x, wte_t, v):
-    logits = jnp.einsum("rh,hv->rv", x, wte_t,
-                        preferred_element_type=jnp.float32)
-    vp = wte_t.shape[1]
-    col = jnp.arange(vp)
-    logits = jnp.where(col[None, :] < v, logits, jnp.float32(-jnp.inf))
-    r = logits.shape[0]
-    wmax = jnp.max(logits.reshape(r, vp // 128, 128), axis=-1)
-    m = jnp.max(logits, axis=-1)
-    l = jnp.sum(jnp.exp(logits - m[:, None]), axis=-1)
-    return logits, wmax, m, l
-
-
-def test_kernel_matches_fallback():
-    x, wte_t, v = _inputs()
-    with pltpu.force_tpu_interpret_mode():
-        out = lmh.lm_head_stats(x, wte_t, v)
-    assert out is not None, lmh.last_error
-    logits_k, wmax_k, m_k, l_k = out
-    logits_f, wmax_f, m_f, l_f = _fallback(x, wte_t, v)
-    np.testing.assert_array_equal(np.asarray(logits_k), np.asarray(logits_f))
-    np.testing.assert_array_equal(np.asarray(wmax_k), np.asarray(wmax_f))
-    np.testing.assert_array_equal(np.asarray(m_k), np.asarray(m_f))
-    # online sum-exp reassociates -> allow f32 rounding
-    np.testing.assert_allclose(np.asarray(l_k), np.asarray(l_f), rtol=1e-5)
-
-
-def test_kernel_pad_columns_are_neg_inf():
-    x, wte_t, v = _inputs(v=1337)   # 1337 -> vp 1408, 71 pad cols
-    with pltpu.force_tpu_interpret_mode():
-        logits, wmax, m, l = lmh.lm_head_stats(x, wte_t, v)
-    assert np.all(np.isneginf(np.asarray(logits[:, v:])))
-    # pad columns never win a window max unless the window is all-pad
-    assert np.isfinite(np.asarray(m)).all()
 
 
 def test_exact_topk_wmax_path_exact():
@@ -64,8 +15,3 @@ def test_exact_topk_wmax_path_exact():
     v_got, i_got = exact_topk(scores, 17, wmax=wmax)
     np.testing.assert_array_equal(np.asarray(v_got), np.asarray(v_ref))
     np.testing.assert_array_equal(np.asarray(i_got), np.asarray(i_ref))
-
-
-def test_fallback_off_tpu_without_interpret():
-    x, wte_t, v = _inputs()
-    assert lmh.lm_head_stats(x, wte_t, v) is None  # CPU backend -> fallback

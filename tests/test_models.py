@@ -101,9 +101,7 @@ def test_vit_trunk_remat_grad_parity():
 def test_vit_trunk_cls_only_bitwise():
     """cls_only slices the CLS token BEFORE the final LayerNorm; LN is
     per-token so the result must be bitwise identical to slicing after —
-    values and (sliced) gradients. (The trunk_2d layout variant was removed
-    in round 4: measured 13% SLOWER than the 3D scan on v5e at bs=64,
-    scripts/exp_encode_v4.py / BASELINE.md.)"""
+    values and (sliced) gradients."""
     from video_caption_tpu.models import vit as vt
 
     cfg = vt.ViTConfig(image_size=32, patch_size=16, embed_dim=48, depth=2,

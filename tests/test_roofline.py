@@ -47,4 +47,21 @@ def test_analytic_flops_scale_with_geometry(tiny_cfg):
 
 
 def test_chip_peaks_none_on_cpu():
-    assert rl.chip_peaks() is None  # tests pin the CPU backend
+    # no published peaks for the CPU: the table raises instead of defaulting
+    with pytest.raises(KeyError, match="no published peaks"):
+        rl.chip_peaks()  # tests pin the CPU backend
+    with pytest.raises(KeyError):
+        rl.chip_peaks("NVIDIA H200")
+
+
+def test_chip_peaks_h100_row():
+    peaks = rl.chip_peaks("NVIDIA H100 80GB HBM3")
+    assert peaks == {"bf16": 989e12, "fp8": 1979e12, "tf32": 495e12, "hbm": 3.35e12}
+    # ridge point of the bf16 roofline: ~295 FLOP per byte
+    assert 290 < peaks["bf16"] / peaks["hbm"] < 300
+
+
+def test_measure_roofline_reports_platform_without_shares(tiny_engine):
+    res = rl.measure_roofline(tiny_engine, batch=2, trials=1, report_path=None)
+    assert res["platform"] == "cpu" and res["peaks"] is None
+    assert all("pct_peak_flops" not in s for s in res["stages"])

@@ -1,17 +1,18 @@
-"""video_caption_tpu — a TPU-native (JAX/XLA/Pallas) video-captioning framework.
+"""video_caption_tpu — a JAX/XLA video-captioning framework that runs on NVIDIA
+GPUs.
 
 Re-implements the full capability surface of the reference video-caption
 stack (video frames -> ViT-B/16 encoder -> prefix projection -> GPT-2
-autoregressive decoder -> caption post-processing), redesigned TPU-first:
+autoregressive decoder -> caption post-processing), redesigned for XLA:
 
 - one jitted XLA program per (config, shape) instead of a zoo of fusion flags
   (reference: core/config.py:32-45 ViTOptimizeConfig switches),
-- scan-based decode with a static-shape HBM KV cache instead of HF dynamic
+- scan-based decode with a static-shape device KV cache instead of HF dynamic
   ``past_key_values`` (reference: src/models/text_decoder.py:105-146),
-- Pallas kernels for the fused pool / prefix-projection hot ops instead of
-  CuPy RawKernels (reference: core/operators/cupy_vit_pool.py,
-  core/operators/cupy_linear_mapper.py), with pure-XLA fallbacks kept as the
-  reference path (same graceful-fallback contract),
+- plain XLA for the fused pool / prefix-projection hot ops the reference
+  wrote as CuPy RawKernels (core/operators/cupy_vit_pool.py,
+  core/operators/cupy_linear_mapper.py): XLA fuses the pool and hands the
+  projection GEMM to cuBLAS,
 - an engine registry keyed by config hash caching *compiled executables*
   (reference: server/services/model_registry.py caches torch engines).
 """

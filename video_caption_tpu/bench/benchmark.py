@@ -1,6 +1,6 @@
 """Stage-sliced benchmark (reference: core/scripts/benchmark_baseline.py).
 
-Reproduces the reference's measurement design on TPU:
+Reproduces the reference's measurement design under XLA:
 
 - the 4-stage taxonomy with one named jax.profiler scope per stage
   (NVTX-range parity, SURVEY §5.1): Preprocessing, ViT_Encoder,

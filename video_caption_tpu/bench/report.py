@@ -3,7 +3,7 @@
 comparison CSV, and the summary JSON with mean/std/p99/max/min per stage.
 
 Key names are kept verbatim (including ``Preprocess_CUDA_Latency`` — here it
-measures the host->device transfer+commit time on TPU) so downstream parsers
+measures the host->device transfer+commit time) so downstream parsers
 of the reference's reports work unchanged.
 """
 from __future__ import annotations

@@ -1,6 +1,5 @@
-"""Concurrent-serving load benchmark (BASELINE.json configuration #5:
-"FastAPI serving path: concurrent video uploads, batched encode+decode at
-fixed QPS").
+"""Concurrent-serving load benchmark: concurrent video uploads, batched
+encode+decode at a fixed offered QPS.
 
 Boots the HTTP server in-process (stdlib fallback server — no extra deps),
 fires concurrent POST /infer requests at a fixed offered QPS from worker
@@ -108,7 +107,7 @@ def run_load(
     if own_server:
         srv.stop()
 
-    try:  # name the serving assembly the numbers came through (VERDICT r1 #9)
+    try:  # name the serving assembly the numbers came through
         import fastapi  # noqa: F401
 
         fastapi_available = True
@@ -147,7 +146,7 @@ def run_sweep(
     num_frames: int = 16, max_batch: int = 8,
     p99_limit_ms: float = 2000.0, achieved_ratio: float = 0.97,
 ) -> dict:
-    """Offered-QPS sweep to the saturation knee (VERDICT r2 #5).
+    """Offered-QPS sweep to the saturation knee.
 
     Climbs offered QPS over one warmed server until either achieved QPS
     falls below ``achieved_ratio`` x offered (queue can't keep up) or p99
@@ -198,7 +197,7 @@ def run_sweep(
         booted[1].stop()
     cache_off = None
     if max_ok is not None:
-        # cache-off row AT the measured capacity (VERDICT r3 #4): every
+        # cache-off row AT the measured capacity: every
         # request re-decodes + re-uploads, so this prices the wire against
         # the chip at the knee. Fresh server: the cache budget is read at
         # engine build.

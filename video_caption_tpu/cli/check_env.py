@@ -2,7 +2,7 @@
 20-47 + experiments/check_gpu.py): dependency groups, accelerator
 visibility, HBM snapshot, import health of the package's own modules.
 
-Usage: python -m video_caption_tpu.cli.check_env [--require-tpu]
+Usage: python -m video_caption_tpu.cli.check_env [--require-gpu]
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ CORE_MODULES = (
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--require-tpu", action="store_true")
+    p.add_argument("--require-gpu", action="store_true")
     args = p.parse_args(argv)
     failures = 0
 
@@ -29,7 +29,7 @@ def main(argv=None) -> int:
     )
 
     try:
-        assert_core_runtime_ready(require_tpu=args.require_tpu)
+        assert_core_runtime_ready(require_gpu=args.require_gpu)
         print("[ok] core dependencies")
     except RuntimeNotReady as err:
         print(f"[FAIL] {err}")
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
 
     snap = MemoryManager().snapshot()
     if snap.bytes_limit:
-        print(f"[ok] HBM: {snap.bytes_in_use / 2**20:.0f} / {snap.bytes_limit / 2**20:.0f} MB")
+        print(f"[ok] device memory: {snap.bytes_in_use / 2**20:.0f} / {snap.bytes_limit / 2**20:.0f} MB")
     return 1 if failures else 0
 
 

@@ -42,6 +42,9 @@ def main(argv=None) -> int:
 
     from video_caption_tpu.config import default_inference_config
     from video_caption_tpu.engine import InferenceEngine
+    from video_caption_tpu.env import assert_accelerator_or_cpu_requested
+
+    assert_accelerator_or_cpu_requested()
 
     overrides = dict(
         num_frames=args.num_frames, image_size=args.image_size,

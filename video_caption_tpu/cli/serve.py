@@ -15,6 +15,9 @@ def main(argv=None) -> int:
                    help="compile the default engine before accepting requests")
     args = p.parse_args(argv)
 
+    from video_caption_tpu.env import assert_accelerator_or_cpu_requested
+
+    assert_accelerator_or_cpu_requested()
     if args.warmup:
         from video_caption_tpu.config import serving_inference_config
         from video_caption_tpu.server.services.model_registry import MODEL_REGISTRY

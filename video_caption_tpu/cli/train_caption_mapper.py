@@ -39,6 +39,10 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, force=True)
     args = parse_args(argv)
 
+    from video_caption_tpu.env import enable_compilation_cache
+
+    enable_compilation_cache()
+
     import jax
 
     from video_caption_tpu.config import MeshConfig, default_inference_config

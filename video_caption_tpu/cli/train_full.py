@@ -32,6 +32,10 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, force=True)
     args = parse_args(argv)
 
+    from video_caption_tpu.env import enable_compilation_cache
+
+    enable_compilation_cache()
+
     import jax
     import optax
 

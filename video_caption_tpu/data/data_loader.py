@@ -19,7 +19,7 @@ Annotation format (scripts/prepare_msvd.py:186-212): a JSON list of records
 ``{"video_id", "split", "captions": [...], "frames_dir", ...}``; flat
 records with a single ``"caption"`` are also accepted.
 
-TPU-first: batches are host numpy with static shapes (fixed T and L) so the
+Batches are host numpy with static shapes (fixed T and L) so the
 jitted train step never recompiles; a background thread prefetches the next
 batch while the device runs the current one.
 """

@@ -58,10 +58,8 @@ def _ngram_banned(generated: jax.Array, t: jax.Array, ngram_size: int):
 
     starts = n_buf - ctx  # candidate start positions 0..starts-1
     # windows[:, i, j] = generated[:, i+j] — STATIC slices stacked over the
-    # (static) ctx axis. The previous fancy-index form generated[:, win_idx]
-    # lowered to a gather custom fusion measured at 2.1 ms/iter PER context
-    # column in the beam program (s32[384x31] gathers, hlo_stats v5e
-    # 2026-08-19) for what is a view-shift of the buffer.
+    # (static) ctx axis. A fancy-index form generated[:, win_idx] lowers to
+    # a gather for what is a view-shift of the buffer.
     windows = jnp.stack(
         [generated[:, j:j + starts] for j in range(ctx)], axis=-1
     )                                                        # [B, starts, ctx]
@@ -103,11 +101,9 @@ def exact_topk(scores: jax.Array, k: int, window: int = 0,
     Exactness: if value v is in the true top-k, fewer than k windows have a
     max exceeding v (each such window would contribute an element above v),
     so v's window is always among the top-k window maxima. The full [B,V]
-    buffer is read ONCE (a VPU max reduce that fuses into its producer);
-    everything after runs on [B, k·window]-sized data. Replaces
-    ``lax.approx_max_k(recall_target=1.0)``, whose PartialReduce custom call
-    measured 2.2 ms/step at [384, 50257] inside the decode loop on v5e —
-    ~20x off its read-bandwidth roofline — vs ~0.3 ms for this path.
+    buffer is read ONCE (a max reduce that fuses into its producer);
+    everything after runs on [B, k·window]-sized data, instead of one sort
+    over the whole vocabulary per row.
 
     Tie-break: equal values resolve by (window max-rank, in-window position)
     rather than lax.top_k's global ascending index; observable only when the
@@ -121,9 +117,9 @@ def exact_topk(scores: jax.Array, k: int, window: int = 0,
     if k >= v:
         return jax.lax.top_k(scores, v)
     if wmax is not None:
-        # precomputed window maxima (the lm-head kernel emits them while the
-        # logits chunk is in VMEM — ops/pallas/lm_head.py); scores must
-        # already be an exact multiple of the window with -inf pads
+        # precomputed window maxima (g2.lm_stats computes them beside the
+        # logits); scores must already be an exact multiple of the window
+        # with -inf pads
         nwin = wmax.shape[1]
         window = v // nwin
         assert nwin * window == v, (v, nwin)
@@ -134,11 +130,8 @@ def exact_topk(scores: jax.Array, k: int, window: int = 0,
         idxs = jnp.take_along_axis(widx, ci // window, axis=1) * window + ci % window
         return vals, idxs
     if window <= 0:
-        # 128 = one full lane tile: 64-wide windows make the [B,nwin,64]
-        # window view tile-misaligned, forcing a column-major relayout copy
-        # of the whole padded buffer per step (copy 5.4 ms/iter at
-        # [384,50304] in the beam program, hlo_stats v5e) that outweighs
-        # the smaller final sort
+        # the LM head pads the vocabulary to a multiple of 128
+        # (g2.lm_head_t), so its logits take this window with no copy
         window = 128
     nwin = -(-v // window)
     pad = nwin * window - v
@@ -147,22 +140,16 @@ def exact_topk(scores: jax.Array, k: int, window: int = 0,
                            constant_values=jnp.float32(-jnp.inf))
     else:
         scores_p = scores
-    # NOTE on lowering (v5e hlo_stats traces): the [B,nwin,w] reduce makes
-    # XLA re-layout the [B,V] buffer column-major (~0.4 ms/step at
-    # [576,50257]) — still the fastest known formulation. A strided-slice
-    # maximum chain triggers the same transpose, and gathering candidates
-    # elementwise (take_along_axis with [B,k*w] indices) lowers to a
-    # ~7 ms/step gather custom call; the BLOCK gather below (whole windows
-    # along axis 1) is the fast path.
+    # gathering candidates elementwise (take_along_axis with [B,k*w]
+    # indices) is a scattered gather; the BLOCK gather below reads whole
+    # windows along axis 1.
     sw = scores_p.reshape(b, nwin, window)
     wmax = jnp.max(sw, axis=-1)                              # [B, nwin]
     kw = min(k, nwin)
     _, widx = jax.lax.top_k(wmax, kw)                        # [B, kw]
     cand = _gather_windows(scores_p, widx, nwin, window, spmd)  # [B, kw, w]
-    # the flat candidate set [B, kw*window] can still be thousands wide —
-    # XLA's TopK custom call measured 743us/step at [384,3968]->31 (v5e
-    # hlo_stats) while each extra windowed stage is a handful of ~40us ops,
-    # so recurse with a narrow sub-window until the final sort is small
+    # the flat candidate set [B, kw*window] can still be thousands wide, so
+    # recurse with a narrow sub-window until the final sort is small
     vals, ci = _topk_flat(cand.reshape(b, kw * window), k, spmd=spmd)
     idxs = jnp.take_along_axis(widx, ci // window, axis=1) * window + ci % window
     return vals, idxs
@@ -174,19 +161,15 @@ def _gather_windows(scores_p: jax.Array, widx: jax.Array,
     ROWS of its flat [B*nwin, window] view (embedding-lookup shape: slice
     size [1, window] along the major axis of a row-major operand).
 
-    ``take_along_axis(sw, widx[:, :, None], axis=1)`` is the same gather,
-    but XLA satisfied its preferred layout by materializing TWO full copies
-    of the logits per decode step (f32[384,50688] {1,0}->{0,1} relayout +
-    a {0,2,1}->{2,0,1} window-view copy — 5.2 ms/iter of the beam program,
-    hlo_stats v5e 2026-08-19); the flat-row form consumes the row-major
-    buffer in place. Pure data movement — bit-identical values."""
+    ``take_along_axis(sw, widx[:, :, None], axis=1)`` is the same gather;
+    the flat-row form consumes the row-major buffer in place without a
+    relayout of the logits. Pure data movement — bit-identical values."""
     b = scores_p.shape[0]
     if spmd:
         # batch-preserving form: the flat-row gather below flattens batch x
         # window across the mesh sharding, and GSPMD answers with an
         # all-gather of the gathered candidate windows EVERY decode step
-        # (caught by the graft-entry decode-collective gate). The layout
-        # copies the flat form avoids are a single-chip XLA:TPU artifact.
+        # (caught by the graft-entry decode-collective gate).
         sw = scores_p.reshape(b, nwin, window)
         return jnp.take_along_axis(sw, widx[:, :, None], axis=1)
     flat = scores_p.reshape(b * nwin, window)
@@ -235,8 +218,7 @@ def topk_processed(
 
     The full-vocab processor chain (apply_repetition_penalty ->
     apply_no_repeat_ngram -> apply_min_new_tokens) costs two scatter passes
-    over [B, V] per decode step — measured ~21 ms of a 131 ms beam decode at
-    B=192/V=50257 on v5e. But when ``repetition_penalty >= 1`` every
+    over [B, V] per decode step. But when ``repetition_penalty >= 1`` every
     processor only LOWERS scores, and only of a known small set: at most
     N (repetition) + N-ngram+1 (ngram bans) + 1 (eos) tokens per row. Any
     token in the modified top-k therefore sits within the RAW top-(k+bound):
@@ -244,7 +226,7 @@ def topk_processed(
     can drop past at most ``bound`` of them, and a penalized token in the
     modified top-k was already in the raw top-k. So: take the raw
     top-(k+bound) candidates once, apply the chain to those C values via
-    membership tests against the [B, N] generated buffer (O(B*C*N) VPU ops),
+    membership tests against the [B, N] generated buffer (O(B*C*N) ops),
     and re-rank — EXACT, one partial sort, zero [B, V] writes.
 
     Tie-break: equal modified scores resolve by raw-score rank instead of
@@ -264,11 +246,7 @@ def topk_processed(
     bound = n_buf + 1
     c = min(k + bound, v)
     # exact top-C via the two-stage windowed reduction (exact_topk): one
-    # fused read of [B,V] + small sorts. Both in-loop alternatives measured
-    # far slower on v5e: lax.top_k's sort becomes a slow loop fusion
-    # (1.9 ms/step at [192, 50257]) and approx_max_k(recall=1.0)'s
-    # PartialReduce custom call runs ~20x off roofline (2.2 ms/step at
-    # [384, 50257]).
+    # fused read of [B,V] + small sorts instead of a full-vocab sort.
     vals, idxs = exact_topk(scores, c, wmax=wmax, spmd=spmd)  # [B,C] desc
     if shift_max is not None:
         # beam path: rank on RAW logits (log-softmax is monotone per row, so
@@ -340,7 +318,7 @@ def apply_top_k_top_p(logits: jax.Array, top_k: int, top_p: float) -> jax.Array:
     within the top-k set — softmax over the filtered distribution equals
     softmax over just the top-k values. EXACT equivalence to the sequential
     warpers, at one [B,V] partial-sort instead of two (the second of which
-    was the 2048-wide nucleus sort — measured ~7 ms/step at B=64 on v5e).
+    was the 2048-wide nucleus sort).
     """
     if top_k <= 0:
         return apply_top_p(logits, top_p)
@@ -402,7 +380,7 @@ def sample_sorted_top_p(
 def apply_top_p(logits: jax.Array, top_p: float, nucleus_cap: int = 2048) -> jax.Array:
     """Nucleus filtering (HF TopPLogitsWarper, min_tokens_to_keep=1).
 
-    A full [B, 50k] sort per decode step is a hidden hot spot on TPU; instead
+    A full [B, 50k] sort per decode step is a hidden hot spot; instead
     the nucleus is computed within the top ``nucleus_cap`` logits via
     lax.top_k (O(V) vs O(V log V)). Exactness: identical to the full sort
     whenever the nucleus fits in the cap — for top_p<=0.95 on a trained LM

@@ -18,11 +18,10 @@ slices) through the exact single-policy helpers (``beam_select`` /
 with a shorter ``max_new_tokens`` FREEZE (carry held via ``jnp.where``)
 while the shared scan runs to the longest horizon.
 
-Version history (profiled on v5e at bs=64, reports/ hlo_stats trace): a v1
-with per-group attention over row slices of the shared caches lost
-~2.8 ms/step to XLA materializing the `cache[layer, a:b]` slices — row
-uniformity removes every per-group cache slice at the cost of dead-row
-compute in the (cheap) activation matmuls.
+Row uniformity: per-group attention over row slices of the shared caches
+makes XLA materialize the `cache[layer, a:b]` slices every step; uniform
+rows remove every per-group cache slice at the cost of dead-row compute in
+the (cheap) activation matmuls.
 """
 from __future__ import annotations
 

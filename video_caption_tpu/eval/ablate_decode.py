@@ -4,7 +4,7 @@ annotation split, sorted CSV output. Default grid matches the reference
 (:86-89): beams [1,3,5] x T [0.7,0.8,1.0] x top_p [0.8,0.9,0.95] x ngram
 [2,3,4].
 
-TPU note: every grid point is its own compiled decode program; the engine's
+Note: every grid point is its own compiled decode program; the engine's
 program cache means a config costs compile once then replays per video.
 """
 from __future__ import annotations

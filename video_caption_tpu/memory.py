@@ -1,6 +1,6 @@
 """Device-memory observability and OOM guard (reference: core/memory.py:19-46).
 
-On TPU there is no ``empty_cache``; recovery from an XLA RESOURCE_EXHAUSTED
+Under XLA there is no ``empty_cache``; recovery from an XLA RESOURCE_EXHAUSTED
 error means deleting live buffers and letting the allocator reclaim. The
 guard therefore reports + re-raises, and ``snapshot`` reads the runtime's
 per-device memory stats when the backend exposes them.

@@ -35,7 +35,7 @@ class AlignConfig:
     - "mean": plain temporal mean (reference ViTTextAlignModel parity,
       vit_text_align.py:54-70) — motion/direction information is washed out
       by construction (mean(f(t)) is order-invariant), measured as the
-      retrieval quality-loop plateau in round 3 (BASELINE.md).
+      retrieval quality-loop plateau.
     - "diff": concat[temporal mean, last-frame minus first-frame features]
       before the projection — the difference term is ANTI-symmetric under
       time reversal, so direction-of-motion becomes linearly separable.

@@ -39,7 +39,6 @@ class CaptionModelConfig:
     0 = identity, the production default)."""
     ln_scale: float = 0.6
     in_weight: float = 0.4
-    use_pallas_projector: bool = False
     freeze_encoder: bool = False
     """Training-time: stop_gradient after the encoder. With the ViT frozen
     (the product trainer's setting, train_caption_mapper.py:199-207) the
@@ -111,17 +110,12 @@ def map_prefix(params: Params, emb: jax.Array, cfg: CaptionModelConfig) -> jax.A
     """Normalized video embedding -> prefix token embeddings [B,P,H].
 
     The mapper matmul is the op the reference offloads to a CUDA kernel
-    (CuPyLinearCompat, cupy_linear_mapper.py:137); here it is either the
-    Pallas projector kernel or a plain XLA matmul.
+    (CuPyLinearCompat, cupy_linear_mapper.py:137); here it is one GEMM with
+    the bias fused into its epilogue by XLA.
     """
     if emb.ndim == 3:
         emb = emb[:, 0, :]
-    if cfg.use_pallas_projector:
-        from video_caption_tpu.ops.pallas.prefix_projector import prefix_project
-
-        out = prefix_project(emb, params["mapper"]["w"], params["mapper"]["b"])
-    else:
-        out = emb @ params["mapper"]["w"] + params["mapper"]["b"]
+    out = emb @ params["mapper"]["w"] + params["mapper"]["b"]
     if cfg.cond_mode == "bos":
         return jnp.tanh(out)[:, None, :]
     return out.reshape(emb.shape[0], cfg.prefix_len, cfg.gpt2.n_embd)
@@ -139,7 +133,7 @@ def encode_frames(params: Params, frames: jax.Array, cfg: CaptionModelConfig) ->
     """Per-frame half of the visual branch: [C,3,H,W] uint8/fp32 ->
     per-frame ViT features [C, embed_dim]. Pairs with
     ``frames_to_prefix`` — the engine's single-request path encodes each
-    uploaded CHUNK of frames while the next chunk is still on the wire
+    uploaded CHUNK of frames while the next chunk is still in transfer
     (vit.vit_encode_frames docstring)."""
     return vt.vit_encode_frames(params["encoder"], frames, cfg.vit)
 

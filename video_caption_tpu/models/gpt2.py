@@ -1,12 +1,12 @@
-"""GPT-2 decoder with a static-shape KV cache, TPU-first.
+"""GPT-2 decoder with a static-shape KV cache.
 
 Capability parity with the reference decoder (src/models/text_decoder.py):
 prefix-conditioned generation through ``inputs_embeds`` and teacher-forcing
 loss. The reference leans on HF ``GPT2LMHeadModel`` with *dynamic*
-``past_key_values`` (text_decoder.py:131-144) — on TPU that would recompile
-every step, so this module is built around:
+``past_key_values`` (text_decoder.py:131-144) — under XLA that would
+recompile every step, so this module is built around:
 
-- a **preallocated HBM-resident KV cache** of static ``max_len``
+- a **preallocated device-resident KV cache** of static ``max_len``
   (SURVEY §5.7): ``{'kv': [L, B, max_len, 2, n_head, head_dim]}`` with K and
   V interleaved so each decode layer issues one cache write (init_cache),
 - one unified forward for prefill (S>1 at offset 0) and decode (S=1 at
@@ -42,53 +42,28 @@ class GPT2Config:
     n_head: int = 12
     dtype: Any = jnp.bfloat16
     ln_eps: float = 1e-5
-    use_pallas_decode: bool = False   # fused decode-step attention kernel
     deferred_cache_write: bool = False
     """Greedy/sampled decode step: hold every layer's new K/V in registers
     and write the WHOLE stack with ONE dynamic_update_slice after the layer
     loop (attention handles the current token as an explicit extra column —
-    ``_attend_deferred``). The 12 per-layer slab writes each carry ~35-45us
-    of fixed overhead (hlo_stats v5e: 13 ms of a 155 ms beam iteration was
-    DUS self-time pre-rework); batching them trades that for one write plus
-    a small stack concat. Off by default pending the hardware A/B; token
-    parity with the per-layer-write path is tested either way."""
-    use_pallas_lm_head: bool = True
-    """Fused LM-head + selection-statistics kernel for the decode step
-    (ops/pallas/lm_head.py): logits, window maxima, row max and sum-exp in
-    one pass. Standard fallback contract off-TPU."""
+    ``_attend_deferred``). Trades the 12 per-layer slab writes, each with a
+    fixed launch cost, for one write plus a small stack concat. Off by
+    default; token parity with the per-layer-write path is tested either
+    way."""
     spmd_decode: bool = False
     """Decode will run under a multi-device mesh (engine sets this when a
     mesh is active): token selection uses the batch-preserving candidate
     gather — the single-chip flat-row form (lp._gather_windows docstring)
     flattens batch x window dims across the sharding and makes GSPMD
     all-gather the gathered candidate windows every step."""
-    use_pallas_beam_attention: bool = True
-    """Beam decode attention as a Pallas custom call
-    (ops/pallas/beam_attention.py). Besides fusing the masked split-cache
-    attention, the call PINS the gen-cache scan carry to the default
-    (R, H)-minor layout, turning the per-step K|V slab write into whole-tile
-    stores (the XLA einsum path pulls the carry to an N-sublane layout whose
-    writes are read-modify-writes — 21 ms of a 117 ms beam iteration)."""
-    use_pallas_decode_layer: bool = False
-    """Fused whole-layer decode kernel (ops/pallas/decode_layer.py): the
-    single-token step runs each transformer layer as ONE Pallas program
-    over a flat [B, max_len, 2H] cache (LN -> QKV -> in-place cache write ->
-    masked attention -> proj -> LN -> MLP). Commits the flat cache layout at
-    trace time — requires plain (non-int8) weights; gated off-platform in
-    init_cache. Mutually exclusive with use_pallas_decode."""
     sample_split_cache: bool = False
     """Greedy/sampled (K=1) decode with the beam path's SPLIT cache: prefill
     K/V stored once per row ([L,B,S0,H], heads merged, never rewritten) and
     a TIME-major merged-H generated-region cache [L,N,2,B,H] whose per-step
-    write is one full-tile [1,1,2,B,H] slab per layer. The tile-padding
-    theory favored split (the contiguous [L,B,max_len,2,nh,hd] cache's
-    (12,64) minor dims pad 2.67x, every write a one-sublane RMW) but the
-    device-level A/B (hlo self-time, v5e 2026-08-19,
-    scripts/ab_sample_cache.py) measured contig FASTER: 32.9 vs 38.2
-    ms/iter at bs=64 — at K=1 the cache is ~6x smaller than the beam
-    path's, the step is latency-bound, and split pays two attention
-    programs (prefill + gen) where contig pays one. Default = contig
-    (False); both paths stay token-parity-gated. Attention in split mode
+    write is one contiguous [1,1,2,B,H] slab per layer. At K=1 the cache is
+    ~6x smaller than the beam path's, the step is latency-bound, and split
+    pays two attention programs (prefill + gen) where contig pays one.
+    Default = contig (False); both paths stay token-parity-gated. Attention in split mode
     uses the head-blocked merged-H form (head_block_mask) with a plain
     causal mask — no ancestry machinery at K=1."""
 
@@ -134,62 +109,35 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int, dtype: Any = None,
     K and V are interleaved in ONE buffer ``[L, B, max_len, 2, nh, hd]``
     (index 0 = K, 1 = V): the decode step's per-layer cache write is then a
     single dynamic_update_slice instead of two. Those writes are in-place
-    but overhead-dominated (~35us each on v5e regardless of size), so
-    halving the count saves ~0.4 ms per decode step at n_layer=12."""
+    but launch-overhead-dominated, so halving the count halves that cost."""
     dtype = dtype or cfg.dtype
     if layout == "beam_gen":
         # beam/unified GENERATED-region cache: TIME-major
         # ``[L, max_len(N), 2, batch(R), H]`` with K|V interleaved ABOVE the
         # row dims and the head dims MERGED into one H=768 minor axis. Each
-        # decode step writes one CONTIGUOUS [1,1,2,R,H] slab per layer whose
-        # minor two dims (R, H) are full (8,128) tiles. The earlier
-        # ``[..., nh, hd]`` form kept (12, 64) as the minor dims — physical
-        # tiles padded to (16, 128) (2.7x bloat) and every per-step write
-        # landed on one sublane of each tile, a read-modify-write measured
-        # at 134us PER LAYER per step (hlo_stats, v5e bs=64: the 12 writes
-        # were 39 of the beam program's 155 ms self-time). The attention
-        # consumes merged H directly (_beam_attend's head-blocked form), so
-        # no per-head reshape of the cache ever materializes.
+        # decode step writes one CONTIGUOUS [1,1,2,R,H] slab per layer. The
+        # attention consumes merged H directly (_beam_attend's head-blocked
+        # form), so no per-head reshape of the cache ever materializes.
         shape = (cfg.n_layer, max_len, 2, batch, cfg.n_embd)
         return {"kv": jnp.zeros(shape, dtype)}
-    if cfg.use_pallas_decode_layer and layout != "stacked":
-        from video_caption_tpu.ops.pallas.decode_layer import kernel_path_supported
-
-        if kernel_path_supported(cfg, batch):
-            # fused-step kernel path: FLAT [L, max_len, B, 2H] cache —
-            # max_len leading within a layer because Mosaic only lowers
-            # leading-dim dynamic stores; the whole stacked array is the
-            # aliased in/out of ONE pallas_call per decode step (grid over
-            # layers), so no XLA-level slicing breaks the in-place aliasing
-            flat = (cfg.n_layer, max_len, batch, 2 * cfg.n_embd)
-            return {"kvf": jnp.zeros(flat, dtype)}
     shape = (cfg.n_layer, batch, max_len, 2, cfg.n_head, cfg.head_dim)
     return {"kv": jnp.zeros(shape, dtype)}
 
 
 def lm_head_t(params: Params, cfg: GPT2Config) -> jax.Array:
-    """Transposed + lane-padded LM head ``[H, Vp]`` (Vp = vocab rounded up to
-    a 128-lane multiple), cast to the compute dtype — computed ONCE outside
-    the decode scan and threaded into the per-step forward as a
-    loop-invariant operand.
+    """Transposed + padded LM head ``[H, Vp]`` (Vp = vocab rounded up to a
+    multiple of the 128-wide selection window), cast to the compute dtype —
+    computed ONCE outside the decode scan and threaded into the per-step
+    forward as a loop-invariant operand.
 
-    Why: the in-scan ``einsum("rh,vh->rv", x, wte)`` made XLA produce the
-    per-step logits COLUMN-major ([384,50257]{0,1}, hlo_stats v5e bs=64),
-    and every selection op downstream then fought that layout — a pad to
-    50304 (103us), a [B,393,128] relayout copy (120us) and a 743us TopK
-    custom call per step, ~32 ms of the 127 ms beam iteration. The
-    ``[R,H] @ [H,Vp]`` form yields row-major logits and the pad columns are
-    masked to -inf in the matmul epilogue (fused), so selection reads the
-    buffer it was laid out for. Pad-column logits are -inf, which every
-    consumer treats as 'absent' (softmax weight exactly 0, never selected).
+    The ``[R,H] @ [H,Vp]`` form yields row-major logits whose [R, Vp/128,
+    128] window view (exact_topk) is a free reshape, and the pad columns are
+    masked to -inf in the matmul epilogue (fused). Pad-column logits are
+    -inf, which every consumer treats as 'absent' (softmax weight exactly 0,
+    never selected).
     """
     v = cfg.vocab_size
     vp = -(-v // 128) * 128
-    if vp >= 4 * 1408:
-        # production vocabs round further to a 1408-lane multiple so the
-        # fused lm-head/stats kernel (ops/pallas/lm_head.py) gets an even
-        # chunk grid (50257 -> 50688 = 36 x 1408; +0.76% matmul FLOPs)
-        vp = -(-vp // 1408) * 1408
     wte_t = params["wte"].astype(cfg.dtype).T          # [H, V]
     if vp != v:
         wte_t = jnp.pad(wte_t, ((0, 0), (0, vp - v)))
@@ -210,24 +158,13 @@ def _lm_logits_t(x: jax.Array, wte_t: jax.Array, vocab_size: int) -> jax.Array:
 
 def lm_stats(x2: jax.Array, wte_t: jax.Array, cfg: "GPT2Config",
              need_row_stats: bool) -> Tuple:
-    """LM head + the selection statistics every decode step needs, computed
-    while the logits chunk is live in VMEM (ops/pallas/lm_head.py) — the
-    [R, Vp] buffer is written once and never re-read for reductions.
+    """LM head + the selection statistics every decode step needs.
 
     Returns (logits [R,Vp] f32 row-major w/ -inf pads, wmax [R,Vp/128],
-    m [R] | None, l [R] | None); m/l (row max, row sum-exp — the beam path's
+    m [R] | None, l [R] | None); wmax is the per-128-column window maximum
+    (exact_topk's first stage), m/l (row max, row sum-exp — the beam path's
     log-softmax shift) are only computed when ``need_row_stats``.
-    XLA fallback computes identical values (modulo the kernel's online
-    sum-exp association for ``l`` — uniform per row, order-preserving).
     """
-    if cfg.use_pallas_lm_head:
-        from video_caption_tpu.ops.pallas.lm_head import lm_head_stats
-
-        out = lm_head_stats(x2.astype(cfg.dtype), wte_t, cfg.vocab_size)
-        if out is not None:
-            logits, wmax, m, l = out
-            return logits, wmax, (m if need_row_stats else None), \
-                (l if need_row_stats else None)
     logits = _lm_logits_t(x2, wte_t, cfg.vocab_size)
     r, vp = logits.shape
     wmax = jnp.max(logits.reshape(r, vp // 128, 128), axis=-1)
@@ -236,19 +173,6 @@ def lm_stats(x2: jax.Array, wte_t: jax.Array, cfg: "GPT2Config",
         m = jnp.max(logits, axis=-1)
         l = jnp.sum(jnp.exp(logits - m[:, None]), axis=-1)
     return logits, wmax, m, l
-
-
-def prepare_decode_params(params: Params, cfg: GPT2Config) -> Params:
-    """Cast the stacked block weights to the compute dtype ONCE, outside the
-    decode scan, for the fused-step kernel path (decode_layer.py): a cast
-    inside the scan body would materialize a 250 MB copy of the weights
-    every token. No-op casts (already-matching dtypes) trace away."""
-    dt = cfg.dtype
-    blocks = {
-        k: (v.astype(jnp.float32) if k.startswith("ln") else v.astype(dt))
-        for k, v in params["blocks"].items()
-    }
-    return {**params, "blocks": blocks}
 
 
 def _layer_norm(x: jax.Array, scale: jax.Array, bias: jax.Array, eps: float) -> jax.Array:
@@ -278,19 +202,6 @@ def _attend(
     b, s = q.shape[0], q.shape[1]
     h = cfg.n_embd
     max_len = k_cache.shape[1]
-
-    if cfg.use_pallas_decode and s == 1:
-        # single-token step: valid_mask only marks columns <= current position,
-        # so it already encodes causality
-        from video_caption_tpu.ops.pallas.decode_attention import decode_attention
-
-        fused = decode_attention(
-            q[:, 0].astype(dt), k_cache.astype(dt), v_cache.astype(dt),
-            valid_mask,
-        )
-        if fused is not None:
-            out = fused.reshape(b, 1, h)
-            return out @ block_weight(blk, "proj_w", dt) + blk["proj_b"].astype(dt)
 
     scale = cfg.head_dim ** -0.5
     logits = jnp.einsum(
@@ -417,43 +328,6 @@ def gpt2_forward(
 
     from video_caption_tpu.models.quantize import block_weight
 
-    if "kvf" in cache:
-        # fused-step kernel path (flat cache; init_cache docstring). Weights
-        # must be pre-cast via prepare_decode_params OUTSIDE the decode scan.
-        from video_caption_tpu.ops.pallas.decode_layer import gpt2_decode_step
-
-        b = x.shape[0]
-        if inputs_embeds.shape[1] == 1:
-            xb, new_kvf = gpt2_decode_step(
-                x[:, 0, :], cache["kvf"], valid_mask, jnp.asarray(offset),
-                params["blocks"], cfg.n_head, cfg.ln_eps,
-            )
-            x = xb[:, None, :]
-            x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
-            if return_stats:
-                return lm_stats(x[:, -1, :], wte_t, cfg, need_row_stats=row_stats), \
-                    {"kvf": new_kvf}
-            if wte_t is not None:
-                return _lm_logits_t(x, wte_t, cfg.vocab_size), {"kvf": new_kvf}
-            logits = jnp.einsum(
-                "bsh,vh->bsv", x, params["wte"].astype(dt),
-                preferred_element_type=jnp.float32,
-            )
-            return logits, {"kvf": new_kvf}
-        # prefill: run the stacked scan once, then reshape into the flat
-        # [L, max_len, B, 2H] layout the kernel path aliases (one-time copy)
-        max_len = cache["kvf"].shape[1]
-        stacked = {"kv": jnp.zeros(
-            (cfg.n_layer, b, max_len, 2, cfg.n_head, cfg.head_dim),
-            cache["kvf"].dtype)}
-        logits, new_st = gpt2_forward(
-            params, inputs_embeds, positions, valid_mask, stacked, offset, cfg,
-            wte_t=wte_t, last_only=last_only, return_stats=return_stats,
-            row_stats=row_stats)
-        kvf = new_st["kv"].reshape(
-            cfg.n_layer, b, max_len, 2 * cfg.n_embd).transpose(0, 2, 1, 3)
-        return logits, {"kvf": kvf}
-
     if inputs_embeds.shape[1] == 1:
         kv_all = cache["kv"]
         deferred = cfg.deferred_cache_write
@@ -536,9 +410,8 @@ def head_block_mask(cfg: GPT2Config) -> jax.Array:
     """[nh, H] 0/1 mask: row h is 1 exactly on head h's H-slice. The
     head-blocked attention multiplies queries by this so per-head dot
     products ride a SINGLE H=768 contraction (zeros kill the cross-head
-    terms exactly) — no per-head [.., nh, hd] tensors, whose (12, 64) minor
-    dims tile-pad to (16, 128) and forced relayout copies around every
-    einsum of the decode step (hlo_stats, v5e)."""
+    terms exactly) — no per-head [.., nh, hd] tensors or per-head reshapes
+    of the caches in the decode step."""
     h_of = jnp.arange(cfg.n_embd, dtype=jnp.int32) // cfg.head_dim
     return (h_of[None, :] == jnp.arange(cfg.n_head, dtype=jnp.int32)[:, None])
 
@@ -562,7 +435,7 @@ def _beam_attend(
     are expanded to [B, K*nh, H] rows that are zero outside their own head's
     H-slice, so every logit/AV contraction runs over the full merged H with
     bit-zero cross-head terms. All matmul operands keep (rows, H) minor dims
-    — full (8,128) tiles, no per-head reshapes of the caches. The prefill
+    — no per-head reshapes of the caches. The prefill
     part is shared per video; the generated part is dense over the video's
     K physical rows with the ancestry one-hot masking non-ancestors to -inf
     (gpt2_beam_step docstring). Returns the attention output [R, H]."""
@@ -602,13 +475,11 @@ def _beam_attend(
     ap, ag = attn[..., :s0], attn[..., s0:s0 + n * k_beams]
     out_p = jnp.einsum("bqs,bsh->bqh", ap, pv.astype(dt))              # [B,K*nh,H]
     # AV over the gen region as an N-BATCHED dot + reduce, NOT one joint
-    # (n,k) contraction: the joint form makes XLA want the gen cache laid
-    # out with N second-minor ({4,1,3,2,0}), which turns every per-step
-    # cache write into a one-sublane read-modify-write of 4608 tiles
-    # (72 us x 12 layers x 24 steps = 21 ms/iter of DUS self-time,
-    # hlo_stats v5e bs=64). Batching the dot over N keeps the contraction
-    # on K alone, so the cache's preferred layout stays (R, H)-minor and
-    # the step's slab write covers whole (8,128) tiles.
+    # (n,k) contraction: the joint form lets XLA pick a gen-cache layout
+    # with N second-minor, which turns every per-step cache write into a
+    # strided read-modify-write. Batching the dot over N keeps the
+    # contraction on K alone, so the cache stays (R, H)-minor and the
+    # step's slab write is contiguous.
     agn = ag.reshape(b, k_beams * nh, n, k_beams).transpose(2, 0, 1, 3)  # [N,B,Q,K]
     per_n = jnp.einsum("nbqk,nbkh->nbqh", agn, gvb.astype(dt),
                        preferred_element_type=jnp.float32)               # batch (n,b)
@@ -642,10 +513,9 @@ def _sample_attend(
     path's _beam_attend without the ancestry machinery: each row attends to
     its own prefill plus its own gen columns <= t, a plain causal mask).
     All matmul operands keep (rows, H) minor dims — no per-head (nh, hd)
-    tensors (whose (12,64) minor dims tile-pad 2.67x). The gen-region AV is
-    an n-batched dot + f32 reduce, NOT a joint contraction over n — the
-    joint form makes XLA re-layout the time-major cache per step (see
-    _beam_attend's identical note). Returns [B, H]."""
+    tensors. The gen-region AV is an n-batched dot + f32 reduce, NOT a
+    joint contraction over n — the joint form lets XLA re-layout the
+    time-major cache per step (see _beam_attend's identical note). Returns [B, H]."""
     dt = cfg.dtype
     b, s0 = prefill_valid.shape
     n = gk.shape[0]
@@ -783,14 +653,12 @@ def gpt2_beam_step(
       physical row r, column t; the beam reorder only permutes the tiny
       ancestry index ``anc`` (anc[r, j] = physical row whose column-j entry
       is row r's ancestor). Attention does NOT gather K/V through ``anc``
-      (a [R,N,nh,hd] gather materialized ~280 MB/step of copies at the
-      production batch — gathers run far below HBM peak on TPU). Instead
-      each beam attends DENSELY to all K physical rows of its own video and
-      an ancestry one-hot mask kills the non-ancestor columns before the
-      softmax: masked logits are -inf, so their probabilities are exactly
-      0.0 and the weighted sum equals the gathered version while staying
-      pure-matmul on the MXU (measured: beam decode stage 205 -> 171 ms at
-      batch 32 x 2 presets x 3 beams, reports/roofline.json).
+      (a [R,N,nh,hd] gather materializes ~280 MB/step of copies at the
+      production batch). Instead each beam attends DENSELY to all K
+      physical rows of its own video and an ancestry one-hot mask kills the
+      non-ancestor columns before the softmax: masked logits are -inf, so
+      their probabilities are exactly 0.0 and the weighted sum equals the
+      gathered version while staying pure matmul.
 
     Returns (logits [R, V] fp32, new gen_cache).
     """
@@ -802,13 +670,12 @@ def gpt2_beam_step(
     k_beams = num_beams
     x = token_embeds.astype(dt) + params["wpe"][positions].astype(dt)   # [R, H]
 
-    # head-block mask (+ the ancestry one-hot, XLA path only), once per step
+    # head-block mask + the ancestry one-hot, once per step. Deferred mode
+    # uses the STRICT mask (column t handled as the explicit self column —
+    # ancestry_mask(t-1) keeps only j < t)
     hmask = head_block_mask(cfg)
-    sel = None
-    if cfg.use_pallas_beam_attention:
-        from video_caption_tpu.ops.pallas.beam_attention import beam_gen_attention
-    else:
-        beam_gen_attention = None
+    deferred = cfg.deferred_cache_write
+    sel = ancestry_mask(anc, b, k_beams, t - 1 if deferred else t)
 
     # PYTHON-UNROLLED layer loop (same rationale as gpt2_forward's decode
     # branch): the layer-scan form re-stacked the [L,R,N,H] gen caches every
@@ -816,13 +683,10 @@ def gpt2_beam_step(
     # loop-carried stacked buffers and reads its own layer as a static
     # slice that fuses into the attention einsums. K and V are SPLIT and the
     # gen cache is TIME-major (init_cache "beam_gen" docstring): the
-    # per-step write is a contiguous [1,1,R,nh,hd] slab, and every per-step
-    # read is a clean static slice — the earlier interleaved layout cost
-    # ~200us per write plus a per-step layout-transposing copy of the whole
-    # prefill cache (hlo_stats trace, v5e bs=64).
+    # per-step write is a contiguous [1,1,2,R,H] slab, and every per-step
+    # read is a clean static slice.
     gkv_all = gen_cache["kv"]                           # [L,N,2,R,H]
     pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]  # [L,B,S0,H]
-    deferred = cfg.deferred_cache_write
     kv_news = []
     for layer in range(cfg.n_layer):
         blk = jax.tree.map(lambda a, _l=layer: a[_l], params["blocks"])
@@ -842,21 +706,10 @@ def gpt2_beam_step(
                 (layer, t, 0, 0, 0))
             k_cur = v_cur = None
 
-        out = None
-        if beam_gen_attention is not None:
-            out = beam_gen_attention(
-                q.astype(dt), gkv_all, pk_all, pv_all, prefill_valid, anc, t,
-                hmask.astype(dt), layer, k_beams, cfg.n_head,
-                k_new=k_cur, v_new=v_cur)
-        if out is None:
-            if sel is None:
-                # deferred: STRICT mask (column t handled as the explicit
-                # self column — ancestry_mask(t-1) keeps only j < t)
-                sel = ancestry_mask(anc, b, k_beams, t - 1 if deferred else t)
-            out = _beam_attend(q, pk_all[layer], pv_all[layer],
-                               gkv_all[layer, :, 0], gkv_all[layer, :, 1],
-                               prefill_valid, sel, hmask, k_beams, cfg,
-                               k_new=k_cur, v_new=v_cur)
+        out = _beam_attend(q, pk_all[layer], pv_all[layer],
+                           gkv_all[layer, :, 0], gkv_all[layer, :, 1],
+                           prefill_valid, sel, hmask, k_beams, cfg,
+                           k_new=k_cur, v_new=v_cur)
         out = out @ block_weight(blk, "proj_w", dt) + blk["proj_b"].astype(dt)
         x = x + out
 

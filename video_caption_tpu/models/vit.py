@@ -1,11 +1,11 @@
-"""ViT-B/16 frame encoder, TPU-first.
+"""ViT-B/16 frame encoder.
 
 Capability parity with the reference encoder (src/models/video_encoder.py:288-326):
 ``[B,T,3,H,W] -> reshape(B*T) -> ViT trunk -> pool (cls|gap) -> temporal mean
 -> Linear(768->256)``, output cast back to fp32
 (reference casts at video_encoder.py:321-324).
 
-TPU-first design decisions (deliberately NOT a torch translation):
+Design decisions (deliberately NOT a torch translation):
 
 - Block parameters are stacked along a leading ``depth`` axis and the trunk
   runs as one ``lax.scan`` over layers: one compiled block program instead of
@@ -13,8 +13,7 @@ TPU-first design decisions (deliberately NOT a torch translation):
   this subsumes the reference's hand-toggled fusion flags
   (video_encoder.py:112-174: fused_attn / tanh-GELU / in-place residual add).
 - Patch embedding runs as a single [B*T*196, 768] matmul (patchify via
-  reshape/transpose) instead of a conv — same arithmetic, maps directly onto
-  the MXU with no im2col.
+  reshape/transpose) or XLA's strided conv — same arithmetic, no im2col.
 - Attention uses one fused QKV matmul per block; softmax in fp32.
 - Compute dtype is a policy knob (bf16 by default), parameters stay fp32.
 """
@@ -43,13 +42,6 @@ class ViTConfig:
     pool: str = "cls"          # 'cls' | 'gap' (reference: video_encoder.py:234-260)
     out_dim: int = 256
     dtype: Any = jnp.bfloat16  # compute dtype
-    use_pallas_pool: bool = False
-    use_pallas_attention: bool = False
-    """Single-pass VMEM-resident attention kernel for the 197-token encoder
-    sequences (ops/pallas/encoder_attention.py) — measured 5x the XLA
-    schedule per standalone layer call (10.4 -> 2.1 ms device time) and
-    314 -> 242 ms for the full bs=32 x 16-frame encode. Falls back to the
-    einsum path off-TPU."""
     gelu_approx: bool = True
     """tanh-approx GELU in the MLP. The reference mutates timm's exact GELU to
     approximate='tanh' at construction (video_encoder.py:124-133,
@@ -58,26 +50,21 @@ class ViTConfig:
     parity with stock timm/HF ViT (exact erf GELU)."""
     gelu_f32: bool = True
     """Compute the MLP GELU in fp32 (cast up around the transcendental).
-    The f32 tanh epilogue runs on the VPU while the MXU streams the MLP
-    matmul tiles; if the VPU side is the slower pipe it caps the fusion
-    below the matmul roofline. False = evaluate GELU in the compute dtype
-    (bf16): ~1e-2 relative activation noise, inside the deployment
-    bf16-vs-fp32 alignment budget — measured before flipping any default."""
+    False = evaluate GELU in the compute dtype (bf16): ~1e-2 relative
+    activation noise, inside the deployment bf16-vs-fp32 alignment budget —
+    measure before flipping the default."""
     patch_conv: bool = True
     """Patch embedding via XLA's native strided conv instead of the explicit
     reshape/transpose + matmul. Same arithmetic (the conv IS the reference's
-    timm patch embed); the explicit patchify forced ~11 ms of 6-D transpose
-    copies per bs=64 encode (hlo_stats r4: reshape.57 + copy.9/10), the conv
-    lowers to the TPU's native convolution path — measured 297.0 -> 288.3 ms
-    full-encode (61.5 -> 63.3% MFU, scripts/exp_encode_v5.py). Accumulation
-    order differs from the matmul path by bf16 rounding (rel 5e-3 on encoder
-    outputs, inside the 5e-2 deployment alignment gate)."""
+    timm patch embed) without materializing the 6-D patchify transpose.
+    Accumulation order differs from the matmul path by bf16 rounding (rel
+    5e-3 on encoder outputs, inside the 5e-2 deployment alignment gate)."""
     remat: bool = False
     """Rematerialize each transformer block in the backward pass
     (``jax.checkpoint`` around the scanned block). Training-only lever:
     the fwd+bwd activation stash of the 12-layer trunk at fp32 is ~4 GB per
-    128 frames (3x [12,N,197,768] + the [.,3072] MLP intermediates — the
-    full-size align trainer OOM'd 16 GB HBM exactly there); remat keeps only
+    128 frames (3x [12,N,197,768] + the [.,3072] MLP intermediates); remat
+    keeps only
     the per-layer carries and recomputes the rest, trading ~33% more trunk
     FLOPs. Inference paths (no grad) are unaffected by the flag."""
 
@@ -159,16 +146,6 @@ def _attention_core(qkv: jax.Array, cfg: ViTConfig) -> jax.Array:
     """Fused-QKV activation [N,S,3H] -> merged-head attention output [N,S,H]
     (pre out-projection)."""
     n, s, _ = qkv.shape
-    if cfg.use_pallas_attention:
-        # IMPORTANT: the kernel consumes the fused-QKV matmul output as-is
-        # and emits [N,S,H] — head split/merge happens inside via static
-        # minor-dim slices. Feeding pre-split q/k/v instead cost 4.9 ms/layer
-        # in XLA layout copies around the custom call (kernel docstring).
-        from video_caption_tpu.ops.pallas.encoder_attention import encoder_attention
-
-        out = encoder_attention(qkv, cfg.num_heads)
-        if out is not None:
-            return out
     r = qkv.reshape(n, s, 3, cfg.num_heads, cfg.head_dim)
     q, k, v = r[:, :, 0], r[:, :, 1], r[:, :, 2]  # [N,S,nh,hd]
     q = q.transpose(0, 2, 1, 3)
@@ -208,9 +185,7 @@ def vit_trunk(params: Params, images: jax.Array, cfg: ViTConfig,
     BEFORE the final LayerNorm. LayerNorm is per-token, so this is bitwise
     identical to `vit_trunk(...)[:, :1]` — but it drops three full-stream
     HBM passes over [N,S,H] (mean/var reduces + normalize apply) down to
-    1/S of the data: hlo_stats on v5e at bs=64x16 frames attributed ~27 ms
-    of the 323 ms encode to the full-stream final norm that the cls pool
-    then discarded (reference computes the full norm because timm's
+    1/S of the data (the reference computes the full norm because timm's
     forward_features does: video_encoder.py:288-314)."""
     dt = cfg.dtype
     pe_w = params["patch_embed"]["w"].astype(dt)
@@ -243,32 +218,24 @@ def vit_trunk(params: Params, images: jax.Array, cfg: ViTConfig,
 
 
 def pool_temporal(tokens: jax.Array, batch: int, frames: int, cfg: ViTConfig) -> jax.Array:
-    """Fused spatial pool + temporal mean: [B*T, S, H] -> [B, H].
-
-    XLA reference path; the Pallas kernel (ops/pallas/fused_pool.py) computes
-    the same contraction (reference CUDA kernels: cupy_vit_pool.py:23-104).
-    """
+    """Fused spatial pool + temporal mean: [B*T, S, H] -> [B, H]
+    (reference CUDA kernels: cupy_vit_pool.py:23-104). XLA fuses the slice
+    or patch mean into the temporal mean; accumulation is fp32."""
     if tokens.shape[1] == 1:
         # cls_only trunk output: the spatial pool is already done; the
-        # remaining [B,T,H] temporal mean is too small for a kernel to matter.
-        # fp32 accumulation matches the Pallas fused_pool semantics.
+        # remaining [B,T,H] temporal mean is all that is left.
         if cfg.pool != "cls":
             raise ValueError(
                 f"single-token trunk output is only valid for pool='cls' "
                 f"(got pool={cfg.pool!r}): gap pooling excludes token 0")
         per_frame = tokens[:, 0, :].astype(jnp.float32)
         return jnp.mean(per_frame.reshape(batch, frames, -1), axis=1).astype(tokens.dtype)
-    if cfg.use_pallas_pool:
-        from video_caption_tpu.ops.pallas.fused_pool import fused_pool_temporal
-
-        out = fused_pool_temporal(tokens, batch, frames, mode=cfg.pool)
-        if out is not None:  # graceful-fallback contract (cupy_vit_pool.py:185-186)
-            return out
+    tf = tokens.astype(jnp.float32)
     if cfg.pool == "cls":
-        per_frame = tokens[:, 0, :]
+        per_frame = tf[:, 0, :]
     else:  # gap over patch tokens, skipping cls (cupy_vit_pool.py:42-61)
-        per_frame = jnp.mean(tokens[:, 1:, :], axis=1)
-    return jnp.mean(per_frame.reshape(batch, frames, -1), axis=1)
+        per_frame = jnp.mean(tf[:, 1:, :], axis=1)
+    return jnp.mean(per_frame.reshape(batch, frames, -1), axis=1).astype(tokens.dtype)
 
 
 IMAGENET_MEAN = jnp.asarray([0.485, 0.456, 0.406])
@@ -289,9 +256,8 @@ def vit_encode_frames(params: Params, frames: jax.Array, cfg: ViTConfig) -> jax.
     per-frame pooled features [C, embed_dim] (compute dtype).
 
     Exists so the engine's single-request path can ENCODE each uploaded
-    chunk of frames while the next chunk is still on the wire (the batch
-    path already overlaps uploads; the single request paid its full
-    ~40 ms device_put serially — BASELINE.md round-3 p50 attribution).
+    chunk of frames while the next chunk is still being transferred (the
+    batch path already overlaps uploads).
     ``vit_encode(video) == vit_finish(vit_encode_frames(frames))`` for
     pool='cls': per-frame trunk math has no cross-frame reductions, so
     chunking the frame batch does not change any per-frame value."""
@@ -307,7 +273,7 @@ def vit_encode_frames(params: Params, frames: jax.Array, cfg: ViTConfig) -> jax.
 def vit_finish(params: Params, per_frame: jax.Array, cfg: ViTConfig) -> jax.Array:
     """Temporal half of ``vit_encode``: per-frame features [B,T,embed_dim]
     -> [B, out_dim] fp32. fp32-accumulated temporal mean matching
-    pool_temporal / the Pallas fused_pool semantics."""
+    pool_temporal."""
     pooled = jnp.mean(per_frame.astype(jnp.float32), axis=1).astype(per_frame.dtype)
     out = pooled @ params["head"]["w"].astype(pooled.dtype) + params["head"]["b"].astype(pooled.dtype)
     return out.astype(jnp.float32)

@@ -2,9 +2,9 @@
 // (PIL's triangle-filter resampling algorithm) + ImageNet normalization,
 // multi-threaded across frames.
 //
-// This is the TPU-framework counterpart of the reference's native layer: the
-// reference embeds CUDA kernels for its device-side hot ops
-// (core/operators/cupy_*.py); on TPU the device ops are Pallas/XLA, so the
+// This is the counterpart of the reference's native layer: the reference
+// embeds CUDA kernels for its device-side hot ops (core/operators/cupy_*.py);
+// here the device ops are XLA's, so the
 // native win is the HOST-side bottleneck — JPEG decode + resize, which
 // otherwise serializes on Python/PIL in the serving path
 // (core/preprocessing/frame_loader.py).

@@ -1,8 +1,8 @@
 """ctypes bridge to the C++ frame loader (frame_loader.cpp).
 
-Build-on-first-use: compiles the shared library with g++ into the user
-cache, keyed by a source hash, and loads it with ctypes (no pybind11
-dependency). Any failure — missing toolchain, missing libjpeg, decode error
+Build-on-first-use: compiles the committed frame_loader.cpp with g++ into
+``<checkout>/.build/native`` (gitignored), keyed by a source hash, and loads
+it with ctypes (no pybind11 dependency). Any failure — missing toolchain, missing libjpeg, decode error
 — returns None and the caller uses the PIL path, mirroring the reference's
 CuPy fallback contract (cupy_vit_pool.py:185-186).
 """
@@ -21,6 +21,7 @@ import numpy as np
 log = logging.getLogger(__name__)
 
 _SRC = Path(__file__).with_name("frame_loader.cpp")
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".build" / "native"
 _LIB = None
 _LIB_FAILED = False
 
@@ -49,22 +50,23 @@ def _build_library() -> Optional[ctypes.CDLL]:
     except OSError:
         pass
     digest = hashlib.sha256((source + cmd_flags + cpu_id).encode()).hexdigest()[:16]
-    cache = Path(os.environ.get(
-        "VIDEO_CAPTION_NATIVE_CACHE",
-        os.path.expanduser("~/.cache/video_caption_tpu/native"),
-    ))
+    cache = BUILD_DIR
     cache.mkdir(parents=True, exist_ok=True)
     lib_path = cache / f"libvct_loader_{digest}.so"
     if not lib_path.exists():
+        # build under a per-process name, then rename: concurrent importers
+        # (test workers, server processes) never load a half-written library
+        tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
             "g++", *cmd_flags.split(),
             "-std=c++17", "-shared", "-fPIC", str(_SRC),
-            "-o", str(lib_path), "-ljpeg", "-pthread",
+            "-o", str(tmp_path), "-ljpeg", "-pthread",
         ]
         log.info("building native frame loader: %s", " ".join(cmd))
         result = subprocess.run(cmd, capture_output=True, text=True)
         if result.returncode != 0:
             raise RuntimeError(f"native build failed: {result.stderr[-500:]}")
+        os.replace(tmp_path, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.vct_load_frames.restype = ctypes.c_int
     lib.vct_load_frames.argtypes = [

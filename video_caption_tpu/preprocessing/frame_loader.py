@@ -21,7 +21,6 @@ from pathlib import Path
 from typing import List, Sequence, Union
 
 import numpy as np
-from PIL import Image
 
 log = logging.getLogger(__name__)
 
@@ -42,6 +41,8 @@ def sample_frame_paths(files: Sequence[Path], num_frames: int) -> List[Path]:
 
 def load_image(path: Union[str, Path], image_size: int) -> np.ndarray:
     """One frame -> [3,H,W] fp32, ImageNet-normalized."""
+    from PIL import Image
+
     with Image.open(path) as img:
         rgb = img.convert("RGB").resize((image_size, image_size), Image.BILINEAR)
         arr = np.asarray(rgb, np.float32) / 255.0          # [H,W,3]
@@ -51,6 +52,8 @@ def load_image(path: Union[str, Path], image_size: int) -> np.ndarray:
 
 def load_image_u8(path: Union[str, Path], image_size: int) -> np.ndarray:
     """One frame -> [3,H,W] uint8 resized pixels (no normalization)."""
+    from PIL import Image
+
     with Image.open(path) as img:
         rgb = img.convert("RGB").resize((image_size, image_size), Image.BILINEAR)
     return np.asarray(rgb, np.uint8).transpose(2, 0, 1)

@@ -1,15 +1,14 @@
 """On-device JPEG colorspace backend: 4:2:0 YCbCr planes -> RGB, bit-exact
 with libjpeg (and therefore with the PIL decode path).
 
-Why this exists: the host->device wire is the serving pipeline's scarce
-resource (BASELINE.md: link fluctuates 15-200+ MB/s; 32-video batches ship
-77 MB of RGB pixels). JPEGs in the canonical dataset are 4:2:0 subsampled
+Why this exists: host->device bytes are a cost on the cold serving path
+(32-video batches ship 77 MB of RGB pixels). JPEGs in the canonical dataset are 4:2:0 subsampled
 (PIL q95 writes 2x2,1x1,1x1 — same for the reference's prepared frames), so
 shipping the *raw decoded planes* (Y full-res + Cb/Cr quarter-res = 1.5
 bytes/pixel) instead of upsampled RGB (3 bytes/pixel) halves the bytes on
-the binding resource. The native loader stops JPEG decoding at the raw-plane
+the transfer. The native loader stops JPEG decoding at the raw-plane
 stage (frame_loader.cpp vct_load_frames_yuv420) and this module finishes the
-decode ON THE TPU:
+decode ON THE DEVICE:
 
 - **h2v2 fancy upsample** (libjpeg jdsample.c h2v2_fancy_upsample): the
   triangle-filter 2x upsample libjpeg applies to chroma by default

@@ -2,7 +2,7 @@
 17-55): one L2-normalized embedding per video, saved as .npy files plus a
 consolidated features matrix.
 
-TPU-first: videos are batched through one jitted encoder program instead of
+Videos are batched through one jitted encoder program instead of
 the reference's per-video forward."""
 from __future__ import annotations
 

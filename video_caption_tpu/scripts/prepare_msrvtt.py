@@ -1,7 +1,7 @@
 """MSR-VTT dataset preparation.
 
-BASELINE.json's fourth configuration targets MSR-VTT full-split feature
-extraction + captioning; the reference ships only MSVD prep, so this module
+MSR-VTT full-split feature extraction + captioning needs the dataset in the
+canonical layout; the reference ships only MSVD prep, so this module
 extends the same canonical layout to MSR-VTT's ``videodatainfo.json``
 format (``{"videos": [{video_id, split, ...}], "sentences":
 [{video_id, caption}]}``):

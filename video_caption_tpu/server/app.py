@@ -10,7 +10,7 @@ from video_caption_tpu.server.settings import SETTINGS
 
 
 def create_app() -> FastAPI:
-    app = FastAPI(title="Video Caption Backend (TPU)", version="2.0.0")
+    app = FastAPI(title="Video Caption Backend", version="2.0.0")
     app.add_middleware(
         CORSMiddleware,
         allow_origins=list(SETTINGS.allow_origins),

@@ -1,10 +1,9 @@
 """Request/response schemas, field-compatible with the reference
 (server/schemas.py:12-52) so existing clients keep working.
 
-CUDA-era fields (``device``, ``vit_enable_*``, ``*cupy*``) are accepted and
-ignored-with-log: on TPU those fusion toggles are XLA's job. Their TPU
-analogs are the ``use_pallas_*`` switches and the bf16 policy, exposed as
-new optional fields.
+Legacy fields (``device``, ``vit_enable_*``, ``*cupy*``, ``use_pallas_*``)
+are accepted and ignored-with-log: those fusion and kernel toggles are
+XLA's job. The compute dtype policy is exposed as a new optional field.
 """
 from __future__ import annotations
 
@@ -19,21 +18,23 @@ from video_caption_tpu.config import serving_inference_config
 # default
 _DEFAULT = serving_inference_config()
 
-# CUDA-era compatibility fields (server/schemas.py:12-41 in the reference):
-# accepted so old clients keep working, ignored-with-log by the service layer
-# (inference_service._IGNORED_CUDA_FIELDS enumerates the same names).
+# Legacy compatibility fields (server/schemas.py:12-41 in the reference,
+# plus the retired kernel switches): accepted so old clients keep working,
+# ignored-with-log by the service layer (inference_service._IGNORED_FIELDS
+# enumerates the same names).
 _CUDA_ERA_FIELDS = dict.fromkeys(
     (
         "vit_enable_fp16", "vit_enable_attention_fastpath", "vit_prefer_channels_last",
         "vit_enable_torch_compile", "vit_enable_mlp_bias_gelu_fusion",
         "vit_enable_residual_layernorm_fusion", "vit_enable_cupy_fused_pool",
         "vit_cupy_pool_force_fp16", "use_cupy_prefix_projector", "cupy_prefix_force_fp16",
+        "use_pallas_fused_pool", "use_pallas_prefix_projector",
     ),
     (Optional[bool], None),
 )
 _CUDA_ERA_FIELDS["vit_torch_compile_mode"] = (Optional[str], None)
 _CUDA_ERA_FIELDS["device"] = (
-    Optional[str], Field(default=None, description="Ignored on TPU"),
+    Optional[str], Field(default=None, description="Ignored: one engine per process"),
 )
 
 _CudaCompatBase = create_model("_CudaCompatBase", **_CUDA_ERA_FIELDS)
@@ -57,10 +58,7 @@ class InferRequest(_CudaCompatBase):
     prompt2: str = Field(default=_DEFAULT.prompt2)
     prompt3: str = Field(default=_DEFAULT.prompt3)
     backend: str = Field(default=_DEFAULT.backend)
-    # TPU-native knobs
     compute_dtype: str = Field(default=_DEFAULT.compile.dtype, description="bfloat16|float32")
-    use_pallas_fused_pool: bool = Field(default=_DEFAULT.compile.use_pallas_fused_pool)
-    use_pallas_prefix_projector: bool = Field(default=_DEFAULT.compile.use_pallas_prefix_projector)
 
 
 class InferResponse(BaseModel):

@@ -1,12 +1,11 @@
 """Request-coalescing batch queue for serving.
 
 The reference serializes requests one-at-a-time through a Semaphore(1)
-(server/services/task_manager.py) because one 4GB GPU holds one request. On
-TPU the decode step is weight-bandwidth bound, so co-scheduling concurrent
+(server/services/task_manager.py) because one 4GB GPU holds one request.
+The decode step is weight-bandwidth bound, so co-scheduling concurrent
 requests into ONE ``engine.infer_batch`` call shares the GPT-2 weight
-traffic — throughput scales with batch at nearly flat latency (the
-"batched encode+decode at fixed QPS" serving configuration in
-BASELINE.json).
+traffic — throughput scales with batch at nearly flat latency (batched
+encode+decode at a fixed offered rate).
 
 A background worker drains the queue: it waits up to ``max_wait_ms`` for
 co-arriving requests (bounded added latency), then dispatches up to

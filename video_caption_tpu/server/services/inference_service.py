@@ -14,27 +14,23 @@ from video_caption_tpu.server.services.task_manager import DEVICE_TASK_MANAGER
 
 log = logging.getLogger(__name__)
 
-_IGNORED_CUDA_FIELDS = (
+_IGNORED_FIELDS = (
     "device", "vit_enable_fp16", "vit_enable_attention_fastpath",
     "vit_prefer_channels_last", "vit_enable_torch_compile",
     "vit_torch_compile_mode", "vit_enable_mlp_bias_gelu_fusion",
     "vit_enable_residual_layernorm_fusion", "vit_enable_cupy_fused_pool",
     "vit_cupy_pool_force_fp16", "use_cupy_prefix_projector",
-    "cupy_prefix_force_fp16",
+    "cupy_prefix_force_fp16", "use_pallas_fused_pool",
+    "use_pallas_prefix_projector",
 )
 
 
 def request_to_config(req: InferRequest) -> InferenceConfig:
-    ignored = [f for f in _IGNORED_CUDA_FIELDS if getattr(req, f) is not None]
+    ignored = [f for f in _IGNORED_FIELDS if getattr(req, f) is not None]
     if ignored:
-        log.info("ignoring CUDA-era request fields (XLA handles these): %s", ignored)
+        log.info("ignoring legacy request fields (XLA handles these): %s", ignored)
     base = serving_inference_config()
-    compile_cfg = dataclasses.replace(
-        base.compile,
-        dtype=req.compute_dtype,
-        use_pallas_fused_pool=req.use_pallas_fused_pool,
-        use_pallas_prefix_projector=req.use_pallas_prefix_projector,
-    )
+    compile_cfg = dataclasses.replace(base.compile, dtype=req.compute_dtype)
     return dataclasses.replace(
         base,
         ckpt=req.ckpt, stage=req.stage, vit_name=req.vit_name, gpt2_name=req.gpt2_name,

@@ -1,7 +1,7 @@
 """Device admission gate (reference: server/services/task_manager.py:10-22).
 
 The reference serializes all GPU work with a Semaphore(1) because a 4GB card
-can hold one request. On TPU the compiled executables are reentrant but we
+can hold one request. The compiled executables are reentrant but we
 keep the same admission-control contract (configurable concurrency; default
 1 request on-device at a time) so latency is predictable under load and
 OOMs cannot stack.

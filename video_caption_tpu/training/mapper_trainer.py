@@ -6,10 +6,10 @@ Semantics preserved: ViT and GPT-2 frozen, ``proj`` + ``mapper`` trained at
 loss identical to the generate path (compute_loss_local :88-129); periodic
 validation with best-val checkpointing; events.csv / val.csv metrics files.
 
-TPU-first: the step is one jitted SPMD program over the device mesh — batch
+The step is one jitted SPMD program over the device mesh — batch
 sharded over the data axis, parameters sharded by the TP rules
 (parallel/mesh.py); XLA inserts the gradient psum over "data". This is the
-multi-chip capability the reference lacks entirely (SURVEY §2.9).
+multi-device capability the reference lacks entirely (SURVEY §2.9).
 """
 from __future__ import annotations
 
